@@ -1,19 +1,22 @@
 #!/usr/bin/env python
-"""Headline benchmark: sim substeps/sec at 128^3 grid / ~4M particles with the
-full pressure + viscosity pipeline on one TPU chip.
+"""Headline benchmark: simulation substeps per second of
+`FluidSimulation.advance` on one GPU, 128^3 grid, ~4.1M particles, with the
+full pressure + viscosity pipeline.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"} where
-vs_baseline is the ratio against the BASELINE.json north-star target of
-50 steps/sec (>1.0 beats the target).
+Scene: a deep pool of liquid (the bottom ~27% of the open interior, ~4.1M
+particles seeded 8 per cell) inside the default domain boundary, viscosity
+5.0, gravity -9.81. Each timed frame ends in a host read of its
+diagnostics, which waits for the device.
 
-Scene: a deep pool of liquid (~25% of the domain -> ~4M seeded particles at 8
-per cell) inside the default domain boundary, viscosity 5.0, gravity -9.81.
-Timing forces device sync via .item() (jax.block_until_ready does not
-synchronize on this platform).
+    python bench.py [--engine table|stream] [--resolution 128] [--frames 5]
+
+Prints the device (platform, device_kind, count, card name and power limit)
+on stderr and ONE JSON line on stdout. Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -21,150 +24,83 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import jax
 
-import jax as _jax
+from flipviscosity3d import FluidSimulation
+from flipviscosity3d.config import PARTICLE_ENGINES
+from flipviscosity3d.io.trianglemesh import box_mesh
+from flipviscosity3d.utils import runtime
 
-_jax.config.update("jax_compilation_cache_dir",
-                   os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                  "/tmp/flip3d_jax_cache"))
-_jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
-
-TARGET_STEPS_PER_SEC = 50.0  # BASELINE.json north star (1x TPU v5p)
+DT = 0.01
+# The pool's peak cell occupancy outgrows 16 in frame 1 and 24 in frame 2
+# (8 and 10 overflowed particle-passes on an H100, PERF.md); 32 holds it.
+POOL_BUCKET_CAPACITY = 32
 
 
-def run(engine: str, frames: int | None = None, quiet: bool = False) -> float:
-    res = int(os.environ.get("BENCH_RESOLUTION", "128"))
-    if frames is None:
-        frames = int(os.environ.get("BENCH_FRAMES", "5"))
-    dt = 0.01
-
-    from flipviscosity3d_tpu import FluidSimulation
-    from flipviscosity3d_tpu.io.trianglemesh import box_mesh
-
+def build_pool(res: int = 128, engine: str = "table",
+               viscosity: float = 5.0, **cfg_overrides) -> FluidSimulation:
+    """The benchmark scene: a liquid pool filling the bottom ~27% of the
+    open interior of a res^3 domain (~4.11M particles at 128^3)."""
     sim = FluidSimulation()
-    # the pool seeds exactly 8 particles/cell and runs a few frames; capacity
-    # 16 keeps overflow at 0 while fitting the 4M-particle tables in HBM
-    cap = int(os.environ.get("BENCH_BUCKET_CAPACITY", "16"))
-    overrides = {}
-    if os.environ.get("BENCH_PASS_B"):          # pallas A/B: plan | sort
-        overrides["pallas_pass_b"] = os.environ["BENCH_PASS_B"]
-    if os.environ.get("BENCH_PUSHBACK"):        # pallas A/B: gather | kernel
-        overrides["pallas_pushback"] = os.environ["BENCH_PUSHBACK"]
-    if os.environ.get("BENCH_SDF_CAPACITY"):
-        overrides["sdf_capacity"] = int(os.environ["BENCH_SDF_CAPACITY"])
-    if os.environ.get("BENCH_MG_DTYPE"):        # mg A/B: f32 | bf16
-        overrides["mg_operator_dtype"] = os.environ["BENCH_MG_DTYPE"]
-    if os.environ.get("BENCH_MIDPOINT_FACTOR"):  # plan static-size A/B
-        overrides["pallas_midpoint_factor"] = float(
-            os.environ["BENCH_MIDPOINT_FACTOR"])
-    if os.environ.get("BENCH_GATHER_DTYPE"):     # gather cols A/B: f32 | bf16
-        overrides["pallas_gather_dtype"] = os.environ["BENCH_GATHER_DTYPE"]
-    if os.environ.get("BENCH_SPLIT_TERMS"):      # one-hot matmul passes A/B
-        overrides["pallas_split_terms"] = int(
-            os.environ["BENCH_SPLIT_TERMS"])
-    if os.environ.get("BENCH_PASS_A"):           # pallas A/B: sort | stale
-        overrides["pallas_pass_a"] = os.environ["BENCH_PASS_A"]
-    if os.environ.get("BENCH_RESORT_EVERY"):
-        overrides["pallas_resort_every"] = int(
-            os.environ["BENCH_RESORT_EVERY"])
-    sim.initialize(res, res, res, 1.0 / res, bucket_capacity=cap,
-                   particle_engine=engine, **overrides)
-
-    # pool filling the bottom ~27% of the open interior -> ~4.2M particles
+    cfg_overrides.setdefault("bucket_capacity", POOL_BUCKET_CAPACITY)
+    sim.initialize(res, res, res, 1.0 / res, particle_engine=engine,
+                   **cfg_overrides)
     lo = 2.5 / res
-    pool = box_mesh(
-        (lo, lo, lo), (1.0 - lo, 0.285, 1.0 - lo)
-    )
-    sim.add_liquid(pool)
-    sim.set_viscosity(5.0)
+    sim.add_liquid(box_mesh((lo, lo, lo), (1.0 - lo, 0.285, 1.0 - lo)))
+    sim.set_viscosity(viscosity)
     sim.set_gravity(0.0, -9.81, 0.0)
+    return sim
 
+
+def run(engine: str, res: int, frames: int) -> dict:
+    sim = build_pool(res, engine)
     n_particles = sim.particle_positions.shape[0]
-    print(
-        f"# bench scene: {res}^3 grid, {n_particles} particles",
-        file=sys.stderr, flush=True,
-    )
+    print(f"# bench scene: {res}^3 grid, {n_particles} particles, "
+          f"engine={engine}", file=sys.stderr, flush=True)
 
-    # warmup/compile
-    diag = sim.advance(dt)
-    _ = int(diag.substeps)  # forced sync
-    print("# compile+first frame done", file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    int(sim.advance(DT).substeps)  # compile + first frame
+    print(f"# compile+first frame {time.perf_counter() - t0:.1f} s",
+          file=sys.stderr, flush=True)
 
-    substeps = 0
-    overflow = 0
+    substeps = overflow = unconverged = 0
     t0 = time.perf_counter()
     for _ in range(frames):
-        diag = sim.advance(dt)
-        substeps += int(diag.substeps)  # .item() sync inside int()
+        diag = sim.advance(DT)
+        substeps += int(diag.substeps)  # host read: waits for the device
         overflow += int(diag.bucket_overflow)
+        unconverged += int(diag.unconverged_solves)
     wall = time.perf_counter() - t0
-    print(f"# engine={engine} substeps={substeps} "
-          f"bucket_overflow={overflow} "
-          f"({overflow / max(substeps, 1) / n_particles:.2%} of "
-          f"particle-passes/substep) last-frame iters: "
+    print(f"# substeps={substeps} bucket_overflow={overflow} "
+          f"unconverged_solves={unconverged} last-frame iters: "
           f"pressure={int(diag.pressure_iterations)} "
           f"viscosity={int(diag.viscosity_iterations)}",
           file=sys.stderr, flush=True)
-
-    steps_per_sec = substeps / wall
-    if not quiet:
-        print(
-            json.dumps(
-                {
-                    "metric": f"sim substeps/sec, {res}^3 grid, "
-                    f"{n_particles} particles, full pressure+viscosity",
-                    "value": round(steps_per_sec, 3),
-                    "unit": "steps/s",
-                    "vs_baseline": round(
-                        steps_per_sec / TARGET_STEPS_PER_SEC, 4),
-                }
-            ),
-            flush=True,
-        )
-    return steps_per_sec
+    return {
+        "metric": f"sim substeps/sec, {res}^3 grid, {n_particles} "
+                  f"particles, full pressure+viscosity, engine={engine}",
+        "value": substeps / wall,
+        "unit": "steps/s",
+        "ms_per_frame": wall / frames * 1e3,
+    }
 
 
 def main():
-    # BENCH_ENGINE: "table" | "pallas" | "auto". The default comes from the
-    # committed BENCH_DEFAULT marker, written by scripts/hw_blitz.sh after
-    # it MEASURES both engines on hardware (the measured-default rule: no
-    # engine choice without a number behind it). Falls back to "table" so
-    # a cold persistent cache never pays two full 128^3 compiles.
-    default = "table"
-    marker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "BENCH_DEFAULT")
-    if os.path.exists(marker):
-        with open(marker) as f:
-            val = f.read().split()[0].strip()
-        if val in ("table", "pallas", "stream", "auto"):
-            default = val
-    engine = os.environ.get("BENCH_ENGINE", default)
-    if engine != "auto":
-        try:
-            run(engine)
-        except Exception as e:  # noqa: BLE001 — report, then fall back
-            if engine == "table":
-                raise
-            print(f"# engine {engine!r} failed ({type(e).__name__}: {e}); "
-                  "retrying with 'table'", file=sys.stderr, flush=True)
-            run("table")
-        return
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--engine", choices=PARTICLE_ENGINES, default="table")
+    p.add_argument("--resolution", type=int, default=128)
+    p.add_argument("--frames", type=int, default=5)
+    args = p.parse_args()
 
-    scores = {}
-    for eng in ("pallas", "table"):
-        try:
-            scores[eng] = run(eng, frames=2, quiet=True)
-            print(f"# auto: {eng} {scores[eng]:.3f} steps/s",
-                  file=sys.stderr, flush=True)
-        except Exception as e:  # noqa: BLE001
-            print(f"# auto: engine {eng!r} failed "
-                  f"({type(e).__name__}: {e})", file=sys.stderr, flush=True)
-    if not scores:
-        raise RuntimeError("both engines failed")
-    best = max(scores, key=scores.get)
-    print(f"# auto: running full bench on {best!r}",
-          file=sys.stderr, flush=True)
-    run(best)
+    runtime.enable_compile_cache()
+    devices = runtime.require_gpu(jax.devices())
+    device = runtime.describe_devices(devices)
+    print(f"# device: {device}", file=sys.stderr)
+    print(f"# card: {runtime.card_info()}", file=sys.stderr, flush=True)
+
+    result = run(args.engine, args.resolution, args.frames)
+    result["device"] = device
+    print(json.dumps(result), flush=True)
 
 
 if __name__ == "__main__":

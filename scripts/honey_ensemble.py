@@ -2,13 +2,13 @@
 """Bound the honey-coil divergence with a reference seed ensemble.
 
 The coiling-rod scene (rod.ply in sphere_large, viscosity 20, 64^3) is
-chaotic once the coil buckles (~frame 90): round 2 documented the TPU run
+chaotic once the coil buckles (~frame 90): round 2 documented the JAX engine's run
 diverging from the C++ reference there and *attributed* it to chaotic
 amplification of seeding differences. This script turns that claim into a
 measurement: run the reference N times with perturbed rand() seeds
 (scripts/ref_baseline/parity_scene_main.cpp argv[8] -> srand), compute each
 perturbed run's center-of-mass divergence from the baseline reference run,
-and check the TPU run's divergence lies inside that ensemble envelope.
+and check the engine run's divergence lies inside that ensemble envelope.
 
 Usage:
   1. build + run the ensemble (see parity_scene_main.cpp usage)
@@ -44,24 +44,13 @@ def run_stats(dirpath, frames):
     return np.array(coms), np.array(ystds)
 
 
-def tpu_stats(frames, res=64, viscosity=20.0, engine=None):
-    import jax
+def engine_stats(frames, res=64, viscosity=20.0, engine="table"):
+    from flipviscosity3d import FluidSimulation
+    from flipviscosity3d.io import trianglemesh as tm
+    from flipviscosity3d.utils.runtime import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                     "/tmp/flip3d_jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
-    from flipviscosity3d_tpu import FluidSimulation
-    from flipviscosity3d_tpu.io import trianglemesh as tm
-
-    if engine is None:
-        # the committed bench default (the engine whose parity is claimed)
-        marker = os.path.join(os.path.dirname(__file__), "..",
-                              "BENCH_DEFAULT")
-        engine = "table"
-        if os.path.exists(marker):
-            engine = open(marker).read().split()[0].strip()
-    print(f"# tpu honey run: engine={engine}", flush=True)
+    enable_compile_cache()
+    print(f"# engine honey run: engine={engine}", flush=True)
     sim = FluidSimulation()
     sim.initialize(res, res, res, 1.0 / res, bucket_capacity=24,
                    particle_engine=engine)
@@ -88,9 +77,9 @@ def main():
     ap.add_argument("--seeds", default="1,2,3,4,5,6,7,8")
     ap.add_argument("--frames", type=int, default=300)
     ap.add_argument("--resolution", type=int, default=64)
-    ap.add_argument("--skip-tpu", action="store_true")
-    ap.add_argument("--engine", default=None,
-                    help="TPU particle engine (default: BENCH_DEFAULT)")
+    ap.add_argument("--skip-engine", action="store_true")
+    ap.add_argument("--engine", default="table",
+                    help="particle engine of the JAX run (table|stream)")
     ap.add_argument(
         "--saved-envelope", default=None,
         help="reuse a previously-computed ensemble envelope JSON (the "
@@ -139,26 +128,27 @@ def main():
         base_ystd=[round(float(v), 4) for v in base_ystd],
     )
 
-    if not args.skip_tpu:
-        tpu_com, tpu_ystd = tpu_stats(args.frames, res)
-        d_tpu = np.linalg.norm(tpu_com - base_com, axis=1) * res
-        inside = d_tpu <= np.maximum(env_max, 0.5)  # 0.5-cell floor pre-chaos
+    if not args.skip_engine:
+        engine_com, engine_ystd = engine_stats(args.frames, res,
+                                               engine=args.engine)
+        d_engine = np.linalg.norm(engine_com - base_com, axis=1) * res
+        inside = d_engine <= np.maximum(env_max, 0.5)  # 0.5-cell floor pre-chaos
         first_out = int(np.argmin(inside)) if not inside.all() else args.frames
         out.update(
-            tpu_div_cells=[round(float(v), 3) for v in d_tpu],
-            tpu_ystd=[round(float(v), 4) for v in tpu_ystd],
+            engine_div_cells=[round(float(v), 3) for v in d_engine],
+            engine_ystd=[round(float(v), 4) for v in engine_ystd],
             frames_inside_envelope=first_out,
             frac_inside=round(float(inside.mean()), 4),
         )
-        ysig_in = (tpu_ystd >= ystd_env.min(axis=0) - 0.005) & (
-            tpu_ystd <= ystd_env.max(axis=0) + 0.005)
+        ysig_in = (engine_ystd >= ystd_env.min(axis=0) - 0.005) & (
+            engine_ystd <= ystd_env.max(axis=0) + 0.005)
         out["ystd_frac_inside"] = round(float(ysig_in.mean()), 4)
         print(json.dumps(dict(
             frames_inside_envelope=first_out,
             frac_inside=out["frac_inside"],
             ystd_frac_inside=out["ystd_frac_inside"],
             env_max_late=round(float(env_max[args.frames // 2:].mean()), 2),
-            tpu_div_late=round(float(d_tpu[args.frames // 2:].mean()), 2),
+            engine_div_late=round(float(d_engine[args.frames // 2:].mean()), 2),
         )))
 
     os.makedirs(os.path.dirname(args.out), exist_ok=True)

@@ -2,7 +2,7 @@
 """Time the multigrid V-cycle building blocks at RES^3 on the active backend.
 
 Each op is iterated K times inside one jit (lax.fori_loop over data-dependent
-chains) so the ~40ms host dispatch floor amortizes away.
+chains) so the host dispatch cost amortizes away.
 """
 
 from __future__ import annotations
@@ -18,14 +18,11 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/flip3d_jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
+from flipviscosity3d.config import SimConfig
+from flipviscosity3d.solvers import multigrid as mg
+from flipviscosity3d.utils.runtime import enable_compile_cache
 
-from flipviscosity3d_tpu.config import SimConfig
-from flipviscosity3d_tpu.solvers import multigrid as mg
+enable_compile_cache()
 
 RES = int(os.environ.get("RES", "128"))
 K = int(os.environ.get("K", "50"))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Statistical parity: TPU engine vs the C++ reference on the default scene.
+"""Statistical parity: the JAX engine vs the C++ reference on the default scene.
 
 The reference seeds particles with libc rand() and accumulates in a different
 order, so comparisons are distributional (SURVEY.md section 4): per-frame
@@ -54,13 +54,11 @@ def main():
     ap.add_argument("--liquid",
                     default="/root/reference/sample_meshes/stanford_bunny.ply")
     ap.add_argument("--engine", default="table",
-                    help="particle_engine for the TPU sim (table|stream|"
-                         "pallas); re-run parity whenever the bench default "
-                         "changes engine")
+                    help="particle_engine of the JAX sim (table|stream)")
     args = ap.parse_args()
 
-    from flipviscosity3d_tpu import FluidSimulation
-    from flipviscosity3d_tpu.io import trianglemesh as tm
+    from flipviscosity3d import FluidSimulation
+    from flipviscosity3d.io import trianglemesh as tm
 
     n = args.resolution
     sim = FluidSimulation()
@@ -85,10 +83,10 @@ def main():
         rows.append(
             dict(
                 frame=frame,
-                n_ref=rs["n"], n_tpu=ms["n"],
+                n_ref=rs["n"], n_engine=ms["n"],
                 com_err_cells=round(com_err * n, 3),
                 ystd_ref=round(float(rs["ystd"]), 4),
-                ystd_tpu=round(float(ms["ystd"]), 4),
+                ystd_engine=round(float(ms["ystd"]), 4),
                 yhist_mad=round(hist_err, 4),
             )
         )
@@ -100,7 +98,7 @@ def main():
             dict(
                 worst_com_err_cells=round(worst["com"] * n, 3),
                 worst_yhist_mad=round(worst["hist"], 4),
-                particle_count_ratio=round(rows[0]["n_tpu"] / rows[0]["n_ref"], 4),
+                particle_count_ratio=round(rows[0]["n_engine"] / rows[0]["n_ref"], 4),
             )
         ),
         flush=True,

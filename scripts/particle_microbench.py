@@ -3,8 +3,8 @@
 
 Times the particle-side passes of one substep at RES^3 / ~NP particles for
 both engines (cfg.particle_engine), with the grid-side pipeline stubbed out:
-the timing isolates exactly the work VERDICT round-1 flagged (~38 ms x 3
-bucket sort/scatter passes at 128^3/4M).
+the timing isolates the bucket sort/scatter passes of the table engine
+against the sorted-stream engine.
 
 Usage: RES=128 python scripts/particle_microbench.py
 """
@@ -21,19 +21,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/flip3d_jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
-
-from flipviscosity3d_tpu.config import SimConfig
-from flipviscosity3d_tpu.ops import particle_grid as pg
-from flipviscosity3d_tpu.ops import stream_transfers as st
-from flipviscosity3d_tpu.ops.buckets import (
+from flipviscosity3d.config import SimConfig
+from flipviscosity3d.ops import particle_grid as pg
+from flipviscosity3d.ops import stream_transfers as st
+from flipviscosity3d.ops.buckets import (
     build_buckets, cell_of_position, gather_results,
 )
-from flipviscosity3d_tpu.ops.stream import stream_sort
+from flipviscosity3d.ops.stream import stream_sort
+from flipviscosity3d.utils.runtime import enable_compile_cache
+
+enable_compile_cache()
 
 RES = int(os.environ.get("RES", "128"))
 FILL = float(os.environ.get("FILL", "0.25"))  # fraction of domain with liquid

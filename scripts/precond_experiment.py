@@ -20,14 +20,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/flip3d_jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
+from flipviscosity3d import FluidSimulation
+from flipviscosity3d.io.trianglemesh import box_mesh
+from flipviscosity3d.utils.runtime import enable_compile_cache
 
-from flipviscosity3d_tpu import FluidSimulation
-from flipviscosity3d_tpu.io.trianglemesh import box_mesh
+enable_compile_cache()
 
 RES = int(os.environ.get("RES", "64"))
 FRAMES = int(os.environ.get("FRAMES", "3"))

@@ -1,6 +1,6 @@
 // Parity harness: runs the default bunny-in-sphere scene on the C++
 // reference and dumps raw particle positions per frame (binary f32 xyz) for
-// statistical comparison with the TPU engine's output.
+// statistical comparison with the JAX engine's output.
 #include <cstdio>
 #include <cstdlib>
 #include <string>

@@ -1,6 +1,6 @@
 // Generalized parity harness: runs an arbitrary mesh-defined scene on the
 // C++ reference and dumps raw particle positions per frame (binary f32 xyz)
-// for statistical comparison with the TPU engine's output.
+// for statistical comparison with the JAX engine's output.
 //
 // Usage: ref_parity_scene <frames> <res> <outdir> <viscosity>
 //            <boundary.ply> <invert:0|1> <liquid.ply> [seed]

@@ -20,24 +20,21 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 import jax.numpy as jnp
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/flip3d_jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
-
 import dataclasses
 
-from flipviscosity3d_tpu import FluidSimulation
-from flipviscosity3d_tpu.io.trianglemesh import box_mesh
-from flipviscosity3d_tpu.ops import particle_grid as pg
-from flipviscosity3d_tpu.ops.buckets import build_buckets
-from flipviscosity3d_tpu.ops.extrapolate import extrapolate_velocity_field
-from flipviscosity3d_tpu.ops.grids import (
+from flipviscosity3d import FluidSimulation
+from flipviscosity3d.io.trianglemesh import box_mesh
+from flipviscosity3d.ops import particle_grid as pg
+from flipviscosity3d.ops.buckets import build_buckets
+from flipviscosity3d.ops.extrapolate import extrapolate_velocity_field
+from flipviscosity3d.ops.grids import (
     face_borders_fluid_u, face_borders_fluid_v, face_borders_fluid_w,
 )
-from flipviscosity3d_tpu.solvers import pressure as psolver
-from flipviscosity3d_tpu.solvers import viscosity as vsolver
+from flipviscosity3d.solvers import pressure as psolver
+from flipviscosity3d.solvers import viscosity as vsolver
+from flipviscosity3d.utils.runtime import enable_compile_cache
+
+enable_compile_cache()
 
 RES = int(os.environ.get("RES", "64"))
 WARM = int(os.environ.get("WARM_FRAMES", "2"))

@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flipviscosity3d_tpu.ops import buckets
+from flipviscosity3d.ops import buckets
 
 DX = 0.25
 SHAPE = (4, 4, 4)
@@ -98,8 +98,8 @@ def test_overflow_end_to_end_bounded_motion():
     bounded, and inside the domain clamp box."""
     import pytest
 
-    from flipviscosity3d_tpu import FluidSimulation
-    from flipviscosity3d_tpu.io.trianglemesh import box_mesh
+    from flipviscosity3d import FluidSimulation
+    from flipviscosity3d.io.trianglemesh import box_mesh
 
     res = 12
     sim = FluidSimulation()

@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flipviscosity3d_tpu.ops.extrapolate import extrapolate_grid
+from flipviscosity3d.ops.extrapolate import extrapolate_grid
 
 
 @functools.partial(jax.jit, static_argnames=("layers",))

@@ -8,7 +8,7 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
-from flipviscosity3d_tpu.parallel import halo
+from flipviscosity3d.parallel import halo
 
 NDEV = 8
 I, J, K = 32, 8, 8

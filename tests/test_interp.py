@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flipviscosity3d_tpu.ops import interp
+from flipviscosity3d.ops import interp
 
 DX = 0.25
 

@@ -9,7 +9,7 @@ import jax
 import numpy as np
 import pytest
 
-from flipviscosity3d_tpu.ops import levelset as _ls_mod
+from flipviscosity3d.ops import levelset as _ls_mod
 
 
 class _Jitted:

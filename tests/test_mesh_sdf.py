@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from flipviscosity3d_tpu.io import trianglemesh as tm
-from flipviscosity3d_tpu.io.primitives import sphere
-from flipviscosity3d_tpu.ops.mesh_sdf import mesh_to_sdf
+from flipviscosity3d.io import trianglemesh as tm
+from flipviscosity3d.io.primitives import sphere
+from flipviscosity3d.ops.mesh_sdf import mesh_to_sdf
 
 DX = 1.0 / 16.0
 SHAPE = (16, 16, 16)

@@ -1,25 +1,42 @@
-"""Mesh I/O: sample-mesh loading and round-trips."""
+"""Mesh I/O: loading and round-trips of meshes written from the
+procedural primitives (io/primitives.py)."""
 
 import numpy as np
+import pytest
 
-from flipviscosity3d_tpu.io import trianglemesh as tm
+from flipviscosity3d.io import primitives as prim
+from flipviscosity3d.io import trianglemesh as tm
 
-SAMPLES = "/root/reference/sample_meshes"
+@pytest.fixture
+def written(tmp_path):
+    """Write a procedural mesh (io/primitives.py) as binary PLY, the format
+    of the reference's sample meshes; return (path, mesh)."""
+
+    def write(mesh, name):
+        path = tmp_path / f"{name}.ply"
+        tm.save_ply(str(path), mesh)
+        return str(path), mesh
+
+    return write
 
 
-def test_load_sample_ply():
-    mesh = tm.load_ply(f"{SAMPLES}/sphere_large.ply")
+def test_load_sample_ply(written):
+    """A container sphere like the default scene's: loads whole and fits
+    the unit domain, as the default scene asserts."""
+    path, src = written(prim.sphere((0.5, 0.5, 0.5), 0.45), "sphere_large")
+    mesh = tm.load_ply(path)
     assert len(mesh.vertices) > 100
     assert len(mesh.triangles) > 100
     assert mesh.triangles.max() < len(mesh.vertices)
+    np.testing.assert_array_equal(mesh.triangles, src.triangles)
     lo, hi = mesh.aabb()
     assert (hi > lo).all()
-    # the default scene asserts this mesh fits the unit domain
     assert (lo >= 0).all() and (hi <= 1.0).all()
 
 
-def test_ply_roundtrip(tmp_path):
-    mesh = tm.load_ply(f"{SAMPLES}/cube.ply")
+def test_ply_roundtrip(tmp_path, written):
+    path, _ = written(prim.cube((0.5, 0.5, 0.5), 0.4), "cube")
+    mesh = tm.load_ply(path)
     p = tmp_path / "out.ply"
     tm.save_ply(str(p), mesh)
     back = tm.load_ply(str(p))
@@ -27,8 +44,9 @@ def test_ply_roundtrip(tmp_path):
     np.testing.assert_array_equal(back.triangles, mesh.triangles)
 
 
-def test_ply_roundtrip_with_colors(tmp_path):
-    mesh = tm.load_ply(f"{SAMPLES}/cube.ply")
+def test_ply_roundtrip_with_colors(tmp_path, written):
+    path, _ = written(prim.cube((0.5, 0.5, 0.5), 0.4), "cube")
+    mesh = tm.load_ply(path)
     colors = np.random.default_rng(0).integers(
         0, 256, size=(len(mesh.vertices), 3), dtype=np.uint8
     )
@@ -36,15 +54,19 @@ def test_ply_roundtrip_with_colors(tmp_path):
     tm.save_ply(str(p), mesh, vertex_colors=colors)
     back = tm.load_ply(str(p))
     np.testing.assert_allclose(back.vertices, mesh.vertices)
+    np.testing.assert_array_equal(back.triangles, mesh.triangles)
 
 
-def test_obj_roundtrip(tmp_path):
-    mesh = tm.load_ply(f"{SAMPLES}/cone.ply")
+def test_obj_roundtrip(tmp_path, written):
+    path, _ = written(prim.cone((0.5, 0.2, 0.5), 0.15, 0.5), "cone")
+    mesh = tm.load_ply(path)
     p = tmp_path / "out.obj"
     tm.save_obj(str(p), mesh)
     back = tm.load_obj(str(p))
     np.testing.assert_allclose(back.vertices, mesh.vertices, rtol=1e-5)
     np.testing.assert_array_equal(back.triangles, mesh.triangles)
+
+
 
 
 def test_obj_face_formats(tmp_path):
@@ -59,8 +81,9 @@ def test_obj_face_formats(tmp_path):
     np.testing.assert_array_equal(mesh.triangles[3], [1, 2, 3])
 
 
-def test_bobj_roundtrip(tmp_path):
-    mesh = tm.load_ply(f"{SAMPLES}/rod.ply")
+def test_bobj_roundtrip(tmp_path, written):
+    path, _ = written(prim.rod((0.5, 0.5, 0.5), 0.1, 0.6, axis=0), "rod")
+    mesh = tm.load_ply(path)
     p = tmp_path / "out.bobj"
     tm.save_bobj(str(p), mesh)
     back = tm.load_bobj(str(p))
@@ -79,8 +102,6 @@ def test_box_mesh():
 
 
 def test_primitives():
-    from flipviscosity3d_tpu.io import primitives as prim
-
     s = prim.sphere((0.5, 0.5, 0.5), 0.2, subdivisions=2)
     r = np.linalg.norm(s.vertices - 0.5, axis=1)
     np.testing.assert_allclose(r, 0.2, atol=1e-6)

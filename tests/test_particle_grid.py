@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from flipviscosity3d_tpu.ops import buckets, interp
-from flipviscosity3d_tpu.ops import particle_grid as pg
+from flipviscosity3d.ops import buckets, interp
+from flipviscosity3d.ops import particle_grid as pg
 
 N = 8
 DX = 1.0 / N

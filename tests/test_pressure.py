@@ -14,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flipviscosity3d_tpu.config import SimConfig
-from flipviscosity3d_tpu.solvers import pressure as ps
+from flipviscosity3d.config import SimConfig
+from flipviscosity3d.solvers import pressure as ps
 
 N = 8
 CFG = SimConfig(isize=N, jsize=N, ksize=N, dx=1.0 / N)

@@ -14,10 +14,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from flipviscosity3d_tpu import FluidSimulation
-from flipviscosity3d_tpu.core import step as step_mod
-from flipviscosity3d_tpu.io.trianglemesh import box_mesh
-from flipviscosity3d_tpu.parallel import shard_step as sh
+from flipviscosity3d import FluidSimulation
+from flipviscosity3d.core import step as step_mod
+from flipviscosity3d.io.trianglemesh import box_mesh
+from flipviscosity3d.parallel import shard_step as sh
 
 N = 32
 NDEV = 4
@@ -44,7 +44,7 @@ def test_shard_step_matches_single_device(scene):
     cfg, state = scene
     mesh = Mesh(np.array(jax.devices()[:NDEV]), (sh.AXIS,))
     spec = sh.make_spec(cfg, NDEV, n_particles=state.pos.shape[0])
-    ss = sh.shard_simstate(state, cfg, spec)
+    ss = sh.shard_simstate(state, cfg, spec, mesh)
 
     sstate = state
     for _ in range(FRAMES):
@@ -87,11 +87,10 @@ def test_shard_step_multigrid_matches_single_device(scene):
         cfg,
         pressure_preconditioner="multigrid",
         viscosity_preconditioner="multigrid",
-        mg_backend="xla",
     )
     mesh = Mesh(np.array(jax.devices()[:NDEV]), (sh.AXIS,))
     spec = sh.make_spec(cfg, NDEV, n_particles=state.pos.shape[0])
-    ss = sh.shard_simstate(state, cfg, spec)
+    ss = sh.shard_simstate(state, cfg, spec, mesh)
 
     sstate, sdiag = step_mod.advance(state, 0.01, cfg)
     ss, mdiag = sh.advance_sharded(ss, 0.01, cfg, spec, mesh)
@@ -125,7 +124,7 @@ def test_migration_moves_particles(scene):
 
     mesh = Mesh(np.array(jax.devices()[:NDEV]), (sh.AXIS,))
     spec = sh.make_spec(cfg, NDEV, n_particles=state.pos.shape[0])
-    ss = sh.shard_simstate(state, cfg, spec)
+    ss = sh.shard_simstate(state, cfg, spec, mesh)
     occ0 = np.asarray(ss.alive).sum(axis=1)
 
     sstate = state
@@ -165,7 +164,7 @@ def test_shard_step_inviscid(scene):
     state0 = state._replace(viscosity=jnp.zeros_like(state.viscosity))
     mesh = Mesh(np.array(jax.devices()[:NDEV]), (sh.AXIS,))
     spec = sh.make_spec(cfg0, NDEV, n_particles=state0.pos.shape[0])
-    ss = sh.shard_simstate(state0, cfg0, spec)
+    ss = sh.shard_simstate(state0, cfg0, spec, mesh)
 
     sstate, sdiag = step_mod.advance(state0, 0.01, cfg0)
     ss, mdiag = sh.advance_sharded(ss, 0.01, cfg0, spec, mesh)
@@ -183,7 +182,7 @@ def test_dcn_slab_mesh_matches_flat_mesh(scene):
     the identical shard_map program — same substeps, same iteration
     counts, same particles — as the flat single-host mesh. On real
     hardware only device PLACEMENT differs (host boundaries ride DCN)."""
-    from flipviscosity3d_tpu.parallel.sharding import make_slab_mesh
+    from flipviscosity3d.parallel.sharding import make_slab_mesh
 
     cfg, state = scene
     mesh_flat = Mesh(np.array(jax.devices()[:NDEV]), (sh.AXIS,))
@@ -191,8 +190,8 @@ def test_dcn_slab_mesh_matches_flat_mesh(scene):
     assert mesh_dcn.shape[sh.AXIS] == NDEV
 
     spec = sh.make_spec(cfg, NDEV, n_particles=state.pos.shape[0])
-    ss_f = sh.shard_simstate(state, cfg, spec)
-    ss_d = sh.shard_simstate(state, cfg, spec)
+    ss_f = sh.shard_simstate(state, cfg, spec, mesh_flat)
+    ss_d = sh.shard_simstate(state, cfg, spec, mesh_dcn)
 
     ss_f, diag_f = sh.advance_sharded(ss_f, 0.01, cfg, spec, mesh_flat)
     ss_d, diag_d = sh.advance_sharded(ss_d, 0.01, cfg, spec, mesh_dcn)
@@ -204,31 +203,15 @@ def test_dcn_slab_mesh_matches_flat_mesh(scene):
         np.sort(pos_f, axis=0), np.sort(pos_d, axis=0), atol=1e-5)
 
 
-def test_shard_step_pallas_engine_matches_single_device(scene):
-    """particle_engine='pallas' under advance_sharded (sort-free budget
-    plans + in-kernel ranks per slab, halo'd through the same fold/
-    exchange machinery) must reproduce the single-device pallas engine:
-    same substeps/iterations, same particle multiset."""
+def test_state_on_mesh_compiles_once(scene):
+    """shard_simstate places every array in the layout advance_sharded
+    returns, so a frame fed its own output reuses the compiled program."""
     cfg, state = scene
-    cfg = dataclasses.replace(cfg, particle_engine="pallas")
-
     mesh = Mesh(np.array(jax.devices()[:NDEV]), (sh.AXIS,))
     spec = sh.make_spec(cfg, NDEV, n_particles=state.pos.shape[0])
-    assert (spec.B + 2 * spec.H) % 8 == 0
-    ss = sh.shard_simstate(state, cfg, spec)
-
-    sstate, sdiag = step_mod.advance(state, 0.01, cfg)
-    ss, mdiag = sh.advance_sharded(ss, 0.01, cfg, spec, mesh)
-    assert int(sdiag.substeps) == int(mdiag.substeps)
-    assert int(mdiag.bucket_overflow) == 0
-    assert abs(
-        int(sdiag.pressure_iterations) - int(mdiag.pressure_iterations)
-    ) <= 1
-
-    pos_m, _ = sh.gather_particles(ss)
-    pos_s = np.asarray(sstate.pos)
-    assert pos_m.shape == pos_s.shape
-    np.testing.assert_allclose(
-        np.sort(pos_s, axis=0), np.sort(pos_m, axis=0), atol=5e-4)
-    u_m = sh.gather_grid_u(ss, spec)
-    np.testing.assert_allclose(u_m, np.asarray(sstate.u), atol=5e-4)
+    ss = sh.shard_simstate(state, cfg, spec, mesh)
+    assert ss.u.sharding.spec == jax.sharding.PartitionSpec(sh.AXIS)
+    ss, _ = sh.advance_sharded(ss, 0.01, cfg, spec, mesh)
+    compiled = sh.advance_sharded._cache_size()
+    ss, _ = sh.advance_sharded(ss, 0.01, cfg, spec, mesh)
+    assert sh.advance_sharded._cache_size() == compiled

@@ -4,9 +4,9 @@ checkpoints round-trip, CFL substepping engages."""
 import numpy as np
 import pytest
 
-from flipviscosity3d_tpu import FluidSimulation
-from flipviscosity3d_tpu.io.trianglemesh import box_mesh
-from flipviscosity3d_tpu.utils.checkpoint import load_state, save_state
+from flipviscosity3d import FluidSimulation
+from flipviscosity3d.io.trianglemesh import box_mesh
+from flipviscosity3d.utils.checkpoint import load_state, save_state
 
 N = 16
 

@@ -12,13 +12,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flipviscosity3d_tpu import FluidSimulation
-from flipviscosity3d_tpu.config import SimConfig
-from flipviscosity3d_tpu.io.trianglemesh import box_mesh
-from flipviscosity3d_tpu.ops import particle_grid as pg
-from flipviscosity3d_tpu.ops import stream_transfers as st
-from flipviscosity3d_tpu.ops.buckets import build_buckets, cell_of_position
-from flipviscosity3d_tpu.ops.stream import cell_runs, stream_sort
+from flipviscosity3d import FluidSimulation
+from flipviscosity3d.config import SimConfig
+from flipviscosity3d.io.trianglemesh import box_mesh
+from flipviscosity3d.ops import particle_grid as pg
+from flipviscosity3d.ops import stream_transfers as st
+from flipviscosity3d.ops.buckets import build_buckets, cell_of_position
+from flipviscosity3d.ops.stream import cell_runs, stream_sort
 
 DX = 1.0 / 12
 SHAPE = (12, 12, 12)
@@ -91,7 +91,7 @@ def test_sample_mac_matches_table_g2p():
         table = build_buckets(pos, payload, DX, SHAPE, 64)
         sx, sy, sz = pg.sample_mac_at_table(table, u, v, w, DX)
         # map back through the slot structure to sorted order
-        from flipviscosity3d_tpu.ops.buckets import gather_results
+        from flipviscosity3d.ops.buckets import gather_results
 
         return gather_results(table, (sx, sy, sz)), table.sorted
 
@@ -123,7 +123,7 @@ def test_pushback_matches_table():
     def run_table(pos, payload):
         table = build_buckets(pos, payload, DX, SHAPE, 64)
         d = pg.solid_pushback_displacement(table, phi_node, DX, SHAPE)
-        from flipviscosity3d_tpu.ops.buckets import gather_results
+        from flipviscosity3d.ops.buckets import gather_results
 
         return gather_results(table, d)
 

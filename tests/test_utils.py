@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from flipviscosity3d_tpu.utils.aabb import AABB
-from flipviscosity3d_tpu.utils.debug import validate_state
+from flipviscosity3d.utils.aabb import AABB
+from flipviscosity3d.utils.debug import validate_state
 
 
 def test_aabb_from_points_and_expand():
@@ -43,8 +43,8 @@ def test_aabb_line_intersection():
 def test_validate_state_flags_problems():
     import jax.numpy as jnp
 
-    from flipviscosity3d_tpu.config import SimConfig
-    from flipviscosity3d_tpu.core.state import SimState, SolidBoundary
+    from flipviscosity3d.config import SimConfig
+    from flipviscosity3d.core.state import SimState, SolidBoundary
 
     cfg = SimConfig(isize=4, jsize=4, ksize=4, dx=0.25)
     solid = SolidBoundary(*(jnp.zeros((2, 2, 2)) for _ in range(8)))

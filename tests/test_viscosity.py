@@ -14,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flipviscosity3d_tpu.config import SimConfig
-from flipviscosity3d_tpu.solvers import viscosity as vs
+from flipviscosity3d.config import SimConfig
+from flipviscosity3d.solvers import viscosity as vs
 from tests.test_levelset import oracle_volume_fraction_cube
 
 N = 6

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from flipviscosity3d_tpu.utils import vmath as vm
+from flipviscosity3d.utils import vmath as vm
 
 
 def test_vec_ops():
